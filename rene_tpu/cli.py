@@ -5,7 +5,7 @@ Mirrors the reference CLI (rene/src/main.rs:47-71): positional pbrt scene,
 knobs the reference hardcodes (SURVEY.md §5 config table): `--spp`
 (reference N_SAMPLES=5000), `--seed`, `--tile-rays`, `--checkpoint/--resume`,
 `--output` override, `--devices N --multichip-mode {samples,tiles}` for
-multi-chip rendering, `--warm-cache` to pre-compile a scene's kernels
+multi-device rendering, `--warm-cache` to pre-compile a scene's kernels
 into the persistent JAX compilation cache, and `--tungsten-compat` /
 `--mf-dist` to apply the shipped Tungsten-golden calibrations
 (scene/overrides.py) from the CLI surface.
@@ -22,7 +22,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rene-tpu",
-        description="TPU-native pbrt-v3 path tracer")
+        description="pbrt-v3 path tracer in JAX")
     p.add_argument("scene", help="pbrt scene file")
     p.add_argument("--aov-normal", metavar="PATH",
                    help="write the normal AOV image")
@@ -48,17 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint if present")
     p.add_argument("--bvh", choices=["auto", "on", "off"], default="auto")
-    p.add_argument("--engine", choices=["auto", "pallas", "wave", "xla"],
-                   default="auto",
-                   help="auto: pallas on TPU for eligible scenes (the "
-                        "wavefront engine for big-mesh scenes, the "
-                        "megakernel otherwise), XLA wavefront fallback; "
-                        "pallas/wave force an engine")
     p.add_argument("--sampler", choices=["auto", "sobol", "independent"],
                    default="auto",
                    help="override the scene's Sampler directive "
-                   "(auto honors it; sobol = padded Owen-scrambled "
-                   "(0,2)-sequence in the pallas engines)")
+                   "(auto honors it; the renderer currently samples "
+                   "independently and warns on sobol)")
     p.add_argument("--color-space", choices=["linear", "srgb",
                                              "srgb-lights"],
                    default="linear",
@@ -82,14 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "conductors/dielectrics (auto = ggx unless an "
                         "override file selects otherwise)")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="render across N chips of the device mesh "
-                        "(sharded pallas megakernel for eligible scenes, "
-                        "psum film reduction over ICI)")
+                   help="render across N devices of a 1-D device mesh "
+                        "(shard_map; samples mode psums the films)")
     p.add_argument("--multichip-mode", choices=["samples", "tiles"],
                    default="samples",
-                   help="samples: each chip traces the frame at its own "
-                        "sample (spp throughput scales); tiles: chips "
-                        "split the frame (per-sample latency scales)")
+                   help="samples: each device traces the frame at its "
+                        "own sample (spp throughput scales); tiles: "
+                        "devices split the frame (per-sample latency "
+                        "scales)")
     p.add_argument("--warm-cache", action="store_true",
                    help="compile the scene's render kernels (populating "
                         "the persistent JAX compilation cache) and exit "
@@ -128,9 +122,8 @@ def main(argv=None) -> int:
                         "this scene (docs/overrides/); rendering as-is")
         elif args.denoiser == "none":
             # calibration files may declare themselves denoiser-only
-            # (e.g. the teapot env probe LOWERS raw SSIM, 0.8882 vs
-            # 0.9252 plain — VALIDATION.md r4): never let compat
-            # regress a raw render
+            # (e.g. the teapot env probe lowers raw SSIM): never let
+            # compat regress a raw render
             import json as _json
             try:
                 with open(ov_file) as f:
@@ -151,6 +144,9 @@ def main(argv=None) -> int:
         log.info("applied scene overrides from %s", ov_file)
     log.info("scene compiled in %.2fs", time.time() - t0)
 
+    from .utils.compile_cache import enable_compile_cache
+    cache_dir = enable_compile_cache()
+
     if args.dump_module:
         import jax
 
@@ -168,13 +164,11 @@ def main(argv=None) -> int:
         return 0
 
     if args.warm_cache:
-        import jax
         t = time.time()
         from .render import warm_cache
-        n_kernels = warm_cache(scene, engine=args.engine)
+        n_kernels = warm_cache(scene)
         log.info("warmed %d kernel(s) in %.1fs (cache: %s)", n_kernels,
-                 time.time() - t,
-                 os.environ.get("JAX_COMPILATION_CACHE_DIR", "<unset>"))
+                 time.time() - t, cache_dir)
         return 0
 
     from .render import DEFAULT_SPP, render
@@ -192,8 +186,7 @@ def main(argv=None) -> int:
         t_mc = time.time()
         out = render_multichip(scene, spp=spp, seed=args.seed, mesh=mesh,
                                tile_rays=args.tile_rays,
-                               mode=args.multichip_mode,
-                               engine=args.engine)
+                               mode=args.multichip_mode)
         out["wall_time"] = time.time() - t_mc
         log.info("multichip: %d devices, mode=%s, effective spp %d",
                  args.devices, args.multichip_mode, out["effective_spp"])
@@ -201,7 +194,7 @@ def main(argv=None) -> int:
         out = render(scene, spp=spp, seed=args.seed,
                      tile_rays=args.tile_rays,
                      checkpoint=args.checkpoint, resume=args.resume,
-                     use_bvh=use_bvh, engine=args.engine,
+                     use_bvh=use_bvh,
                      want_var=args.denoiser != "none")
 
     color = out["color"]

@@ -137,8 +137,9 @@ def render_batch(buffers, config: RenderConfig, px, py, seed, num_samples,
         aov_normal = c["aov_normal"] + v3.where(first, normal, 0.0)
         aov_albedo = c["aov_albedo"] + v3.where(first, albedo, 0.0)
 
-        # -- NEE for distant lights (lib.rs:234-272)
-        for li in range(config.num_lights):
+        # -- NEE for distant lights (lib.rs:234-272), as a loop so that
+        # the traced program does not grow with the light count
+        def light_nee(li, radiance):
             ld = buffers["light_dir"][li]
             lc = buffers["light_color"][li]
             wi_l = V3(jnp.broadcast_to(ld[0], position.x.shape),
@@ -149,8 +150,11 @@ def render_batch(buffers, config: RenderConfig, px, py, seed, num_samples,
             f_l = B.bsdf_f(lobes, onb, normal, wo, wi_l, config)
             contrib = color * f_l * jnp.abs(wi_l.dot(normal)) \
                 * V3(lc[0], lc[1], lc[2])
-            radiance = radiance + v3.where(path_alive & ~shadowed, contrib,
-                                           0.0)
+            return radiance + v3.where(path_alive & ~shadowed, contrib, 0.0)
+
+        if config.num_lights:
+            radiance = jax.lax.fori_loop(0, config.num_lights, light_nee,
+                                         radiance)
 
         # -- scatter: MIS mixture or plain BSDF sampling. The light
         # strategy set is the emissive objects plus (env_nee) the

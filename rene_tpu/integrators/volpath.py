@@ -169,7 +169,9 @@ def render_batch(buffers, config: RenderConfig, px, py, seed, num_samples,
         color = v3.where(alive, color * mtr, color)
 
         # =================== medium interaction ===================
-        for li in range(config.num_lights):
+        # distant-light NEE as loops (path.py: program size stays flat in
+        # the light count)
+        def medium_nee(li, radiance):
             ld = buffers["light_dir"][li]
             lc = buffers["light_color"][li]
             wi_l = V3(jnp.broadcast_to(ld[0], position.x.shape),
@@ -177,8 +179,12 @@ def render_batch(buffers, config: RenderConfig, px, py, seed, num_samples,
                       jnp.broadcast_to(ld[2], position.x.shape))
             trv = _tr_march(buffers, config, mpos, wi_l, med, accel=accel)
             phase = MD.med_phase(buffers, med, wo, wi_l)
-            radiance = radiance + v3.where(
+            return radiance + v3.where(
                 sampled, color * trv * phase * V3(lc[0], lc[1], lc[2]), 0.0)
+
+        if config.num_lights:
+            radiance = jax.lax.fori_loop(0, config.num_lights, medium_nee,
+                                         radiance)
 
         m_dir, state = MD.med_sample_p(buffers, med, wo, state)
         if num_emit > 0:
@@ -208,7 +214,7 @@ def render_batch(buffers, config: RenderConfig, px, py, seed, num_samples,
         aov_albedo = c["aov_albedo"] + v3.where(first, albedo, 0.0)
 
         surf_scatter = surf & ~mat_none
-        for li in range(config.num_lights):
+        def surface_nee(li, radiance):
             ld = buffers["light_dir"][li]
             lc = buffers["light_color"][li]
             wi_l = V3(jnp.broadcast_to(ld[0], position.x.shape),
@@ -217,10 +223,14 @@ def render_batch(buffers, config: RenderConfig, px, py, seed, num_samples,
             trv = _tr_march(buffers, config, position, wi_l, med,
                             accel=accel)
             f_l = B.bsdf_f(lobes, onb, normal, wo, wi_l, config)
-            radiance = radiance + v3.where(
+            return radiance + v3.where(
                 surf_scatter,
                 color * trv * f_l * jnp.abs(wi_l.dot(normal))
                 * V3(lc[0], lc[1], lc[2]), 0.0)
+
+        if config.num_lights:
+            radiance = jax.lax.fori_loop(0, config.num_lights, surface_nee,
+                                         radiance)
 
         swi, sf, spdf, state = B.bsdf_sample_f(lobes, onb, wo, state, config)
         if num_emit > 0:

@@ -1,11 +1,11 @@
 """AOV-guided denoisers, replacing the reference's OptiX/OIDN FFI hooks
-(rene/src/main.rs:1812-1911). Two backends, both running on the same chip
+(rene/src/main.rs:1812-1911). Two backends, both running on the same device
 as the renderer:
 
 * `atrous_denoise` — edge-avoiding à-trous wavelet filtering (Dammertz et
   al. 2010, the SVGF building block), guided by the normal and albedo AOVs
-  the integrators write at bounce 0. Deterministic, no weights, TPU-friendly
-  (stencil ops fuse into a handful of VPU passes).
+  the integrators write at bounce 0. Deterministic, no weights (stencil
+  ops that XLA fuses into a handful of passes).
 * `UNetDenoiser` — a small flax U-Net predicting a color residual OVER
   the à-trous output from (noisy, à-trous, normal, albedo). The final
   conv is zero-initialized, so the untrained net reproduces à-trous
@@ -75,59 +75,57 @@ def atrous_denoise(color, normal, albedo, iterations: int = 5,
 # Learned denoiser (flax U-Net scaffold)
 # ---------------------------------------------------------------------------
 
+def _flax_linen():
+    try:
+        import flax.linen as nn
+    except ImportError as e:
+        raise ImportError("the U-Net denoiser (--denoiser cnn) needs the "
+                          "'flax' package, which is not installed; "
+                          "--denoiser atrous runs without it") from e
+    return nn
+
+
+def _flax_serialization():
+    _flax_linen()
+    import flax.serialization as ser
+    return ser
+
+
+def conv3x3(x, kernel):
+    """3x3 SAME convolution of NHWC `x` with an HWIO `kernel`, at
+    `lax.Precision.HIGHEST` (full float32 products; a GPU would otherwise
+    be free to run it in TF32)."""
+    import jax
+    return jax.lax.conv_general_dilated(
+        x, kernel, window_strides=(1, 1), padding="SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST)
+
+
 class UNetDenoiser:
     """Small U-Net over (noisy, à-trous base, normal, albedo) predicting a
     residual added to the à-trous base."""
 
     def __init__(self, features: int = 24, levels: int = 3):
-        import flax.linen as nn
+        nn = _flax_linen()
         import jax.numpy as jnp
 
         class Conv3(nn.Module):
-            """3x3 SAME conv as 9 shifted matmuls. The TPU runtime here
-            executes XLA convolution ops ~100x below matmul rate (a
-            1024^2 film cost ~80 s through nn.Conv); dot_general runs at
-            full MXU rate. Parameter names/shapes match nn.Conv, so
-            weights trained either way stay loadable."""
+            """3x3 SAME convolution, HWIO kernel (parameter names and
+            shapes of nn.Conv, so the shipped weights load unchanged)."""
             ch: int
+            kernel_init = staticmethod(nn.initializers.lecun_normal())
 
             @nn.compact
             def __call__(self, x):
-                cin = x.shape[-1]
-                k = self.param(
-                    "kernel", nn.initializers.lecun_normal(),
-                    (3, 3, cin, self.ch))
+                k = self.param("kernel", self.kernel_init,
+                               (3, 3, x.shape[-1], self.ch))
                 b = self.param("bias", nn.initializers.zeros, (self.ch,))
-                h, w = x.shape[1], x.shape[2]
-                xp = jnp.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
-                out = None
-                for dy in range(3):
-                    for dx in range(3):
-                        t = jnp.einsum("bhwc,co->bhwo",
-                                       xp[:, dy:dy + h, dx:dx + w, :],
-                                       k[dy, dx])
-                        out = t if out is None else out + t
-                return out + b
+                return conv3x3(x, k) + b
 
         class ConvZero(Conv3):
             """Conv3 with a zero-init kernel (the residual head)."""
-
-            @nn.compact
-            def __call__(self, x):
-                cin = x.shape[-1]
-                k = self.param("kernel", nn.initializers.zeros,
-                               (3, 3, cin, self.ch))
-                b = self.param("bias", nn.initializers.zeros, (self.ch,))
-                h, w = x.shape[1], x.shape[2]
-                xp = jnp.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
-                out = None
-                for dy in range(3):
-                    for dx in range(3):
-                        t = jnp.einsum("bhwc,co->bhwo",
-                                       xp[:, dy:dy + h, dx:dx + w, :],
-                                       k[dy, dx])
-                        out = t if out is None else out + t
-                return out + b
+            kernel_init = staticmethod(nn.initializers.zeros)
 
         class Block(nn.Module):
             ch: int
@@ -176,8 +174,8 @@ class UNetDenoiser:
 
     def save(self, path: str):
         """Persist params (flax msgpack) with the net shape prefixed."""
-        import flax.serialization as ser
         import os
+        ser = _flax_serialization()
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "wb") as f:
             f.write(bytes([self.features, self.levels]))
@@ -185,8 +183,8 @@ class UNetDenoiser:
 
     @classmethod
     def load(cls, path: str) -> "UNetDenoiser":
-        import flax.serialization as ser
         import jax
+        ser = _flax_serialization()
         with open(path, "rb") as f:
             head = f.read(2)
             blob = f.read()

@@ -1,6 +1,6 @@
 """U-Net denoiser training, replacing the reference's pre-trained
 OIDN/OptiX denoisers (rene/src/main.rs:1812-1911) with one trained on this
-renderer's own output and running on the same chip.
+renderer's own output and running on the same device as the renderer.
 
 Data: (noisy low-spp, clean high-spp) render pairs — multiple scenes,
 noise levels, and seeds — cropped into patches; the noise the net learns

@@ -1,9 +1,9 @@
-"""Acceleration selection: MXU brute-force vs BVH, per scene.
+"""Acceleration selection: brute-force matmul intersector vs BVH, per scene.
 
-Small scenes (cornell-box, veach-mis, sphere/cube) hit the MXU Plücker
-matmul intersector — dense, branch-free, systolic-array work. Large meshes
+Small scenes (cornell-box, veach-mis, sphere/cube) use the Plücker matmul
+intersector (ops/mxu_intersect.py) — dense and branch-free. Large meshes
 (teapot, dragon) go through the SAH BVH's wavefront traversal. The emissive
-pdf-set (usually a handful of primitives) always uses the MXU path.
+pdf-set (usually a handful of primitives) always uses the brute-force path.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from typing import Optional
 
 import numpy as np
 
+# Crossover from brute force to the BVH. Inherited, not measured on the
+# H100 (ROADMAP D6).
 MXU_MAX_TRIS = 4096
 
 

@@ -1,11 +1,11 @@
 """BSDF stack: material -> lobe slots, and vectorized f / pdf / sample_f.
 
-TPU-native replacement for the reference's `Bsdf` (a stack of up to 5
+Vectorized replacement for the reference's `Bsdf` (a stack of up to 5
 `EnumBxdf` tagged unions, reflection.rs:228-343) plus the material dispatch
 in material.rs. Two layout decisions drive the design (see vec3.py):
 
-* **component-SoA**: all vector math runs on (N,) component arrays — full
-  VPU lane utilization instead of the 3/128 tax of (N,3) arrays;
+* **component-SoA**: all vector math runs on (N,) component arrays instead
+  of (N,3) arrays;
 * **unrolled lobe slots**: the up-to-5 lobe stack is a *python list* of slot
   dicts, not an (N,5,...) tensor — a matte-only scene carries exactly one
   slot with one live BxDF variant.
@@ -205,7 +205,7 @@ def compute_bsdf(buffers, mat_idx, uv, config) -> List[Dict]:
         ax, ay = remap_alpha(u1[:, 0], t_u0z.x, t_u0w.x)
         # mat_v0.xyz = optional conductor response scale (0 -> 1): the
         # --scene-overrides diagnostic knob for renderer-convention
-        # divergence (VALIDATION veach forensics)
+        # divergence (the veach forensics, scene/overrides.py)
         mv = buffers["mat_v0"][mat_idx]
         fs = V3(jnp.where(mv[:, 0] == 0.0, 1.0, mv[:, 0]),
                 jnp.where(mv[:, 1] == 0.0, 1.0, mv[:, 1]),

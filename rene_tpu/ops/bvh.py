@@ -1,6 +1,6 @@
 """BVH: host-side median-split build + wavefront stack traversal on device.
 
-This is the TPU replacement for the hardware acceleration structures the
+This replaces the hardware acceleration structures the
 reference gets from Vulkan (VK_KHR_acceleration_structure,
 rene/src/main.rs:2417-2908). The BVH is *data*, not a driver object:
 
@@ -13,7 +13,7 @@ rene/src/main.rs:2417-2908). The BVH is *data*, not a driver object:
   node, and its running closest hit. Internal nodes test both child slabs
   against the running t and descend the near child, pushing the far child;
   leaves run a fixed LEAF_SIZE-wide Möller–Trumbore. All lanes advance in
-  lock-step with masking — the TPU analogue of warp-synchronous traversal.
+  lock-step with masking, like warp-synchronous traversal.
 
 Node SoA layout (M = number of nodes):
   aabb_min/aabb_max (M,3), left (M,) i32 (internal: left child; leaf: prim

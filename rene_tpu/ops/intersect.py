@@ -2,8 +2,8 @@
 
 Replaces the reference's Vulkan fixed-function BVH traversal plus its
 intersection/closest-hit shaders (rene-shader/src/lib.rs:805-952). All ray
-data is component-SoA (`V3`, see vec3.py); the triangle test itself runs on
-the MXU (ops/mxu_intersect.py) for brute-force-sized scenes or through the
+data is component-SoA (`V3`, see vec3.py); the triangle test itself runs as
+matmuls (ops/mxu_intersect.py) for brute-force-sized scenes or through the
 BVH wavefront traversal (ops/bvh.py) for large meshes. Analytic spheres are
 a python-unrolled loop over instances (object-space quadratic, the
 reference's sphere_intersection lib.rs:805-839).
@@ -24,7 +24,7 @@ from ..scene import types as T
 from . import vec3 as v3
 from .vec3 import V3
 
-BIG_T = jnp.float32(1e30)
+BIG_T = np.float32(1e30)  # a numpy scalar: see the note in ops/rng.py
 TRI_CHUNK = 512
 
 

@@ -27,8 +27,8 @@ TWO_PI = 2.0 * math.pi
 def _beckmann():
     """RENE_MF_DIST=beckmann swaps the distribution to Beckmann (D +
     pbrt's rational-fit lambda + full-normal sampling with matching
-    pdf) in BOTH engines — a diagnostic for the veach lobe-shape
-    residual (VALIDATION.md). Read at trace time."""
+    pdf) — a diagnostic for the veach lobe-shape residual. Read at
+    trace time."""
     return os.environ.get("RENE_MF_DIST", "") == "beckmann"
 
 

@@ -1,23 +1,26 @@
-"""MXU brute-force triangle intersection via Plücker coordinates.
+"""Brute-force triangle intersection via Plücker coordinates, as matmuls.
 
-TPU-native replacement for per-triangle Möller–Trumbore: the three edge
-side-tests of a ray against a triangle are *linear* in the ray's Plücker
-coordinates (d, w = o x d):
+Instead of per-triangle Möller–Trumbore, the three edge side-tests of a ray
+against a triangle are *linear* in the ray's Plücker coordinates
+(d, w = o x d):
 
     side(edge a->b) = d . (a x b) + w . (b - a)
 
-so testing N rays against C triangles is one (3C,6) @ (6,N) matmul on the
-MXU, plus a (2C,4) @ (4,N) matmul for the plane-equation t values
+so testing N rays against C triangles is one (3C,6) @ (6,N) matmul, plus a
+(C,4) @ (4,N) and a (C,3) @ (3,N) matmul for the plane-equation t values
 (t = (k - o.n)/(d.n)). A ray hits when all three sides share a sign
 (watertight along shared edges up to f32 rounding, no backface culling —
 matching the reference's un-culled RT pipeline, main.rs:3078-3105).
 
-Layout note (measured): everything is kept in the **(C, N)** orientation —
-ray features stack along axis 0 (a cheap concat of (N,) component arrays)
-and all per-candidate tensors have the ray dimension minor, so every
-elementwise op and reduction is fully lane-tiled. The naive (N, C)
-orientation required a strided (N,6) transpose of the ray features that
-alone cost ~20ms at 262k rays.
+Precision: every dot runs at `lax.Precision.HIGHEST`, i.e. full float32
+products. A GPU may otherwise run a float32 dot in TF32 (10-bit mantissa),
+which flips the sign test on shared edges and moves the plane t by far
+more than the integrators' TMIN of 1e-3 (integrators/path.py).
+
+Layout: everything is kept in the (C, N) orientation — ray features stack
+along axis 0 (a concat of (N,) component arrays) and all per-candidate
+tensors have the ray dimension minor, so no (N, 6) transpose of the ray
+features is needed.
 
 Barycentrics for the winning triangle come from the signed side values:
 with edges E0: v0->v1, E1: v1->v2, E2: v2->v0,
@@ -99,15 +102,19 @@ class MXUIntersector:
                         axis=0)                              # (4, N)
         dT = featT[:3]                                       # (3, N)
 
-        s = jnp.dot(d["B"], featT, preferred_element_type=jnp.float32)
+        hi = jax.lax.Precision.HIGHEST
+        s = jnp.dot(d["B"], featT, precision=hi,
+                    preferred_element_type=jnp.float32)
         s0 = s[:C]
         s1 = s[C:2 * C]
         s2 = s[2 * C:]
         pos = (s0 >= 0) & (s1 >= 0) & (s2 >= 0)
         neg = (s0 <= 0) & (s1 <= 0) & (s2 <= 0)
 
-        pp = jnp.dot(d["P_on"], onT, preferred_element_type=jnp.float32)
-        dn = jnp.dot(d["P_dn"], dT, preferred_element_type=jnp.float32)
+        pp = jnp.dot(d["P_on"], onT, precision=hi,
+                     preferred_element_type=jnp.float32)
+        dn = jnp.dot(d["P_dn"], dT, precision=hi,
+                     preferred_element_type=jnp.float32)
         t = pp / jnp.where(jnp.abs(dn) > 1e-12, dn, 1e-12)
 
         valid = ((pos | neg) & (jnp.abs(dn) > 1e-12)
@@ -121,7 +128,7 @@ class MXUIntersector:
         if not want_bary:
             return tbest, best
 
-        # onehot row-select of the winning side values (lane-tiled sums)
+        # onehot row-select of the winning side values
         row = jax.lax.broadcasted_iota(jnp.int32, (C, 1), 0)
         onehot = (row == best[None, :]).astype(jnp.float32)  # (C, N)
         bs0 = jnp.sum(onehot * s0, axis=0)

@@ -2,18 +2,23 @@
 
 Bitwise-compatible port of the reference's device RNG
 (/root/reference/rene-shader/src/rand.rs:4-54), vectorized over uint32 state
-arrays so every ray lane carries its own stream. All ops are lane-wise VPU
-integer math — ideal for TPU.
+arrays so every ray lane carries its own stream. All ops are lane-wise
+integer math.
 
 Functional style: every draw returns (value, new_state).
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 
-_MULT = jnp.uint32(747796405)
-_INC = jnp.uint32(2891336453)
-_OUT_MULT = jnp.uint32(277803737)
+# numpy scalars, not jax arrays: a module-level jax array closed over by
+# jitted code becomes a hoisted constant, and JAX 0.9's dispatch fast path
+# drops such constants on the second call of a later jit that shares
+# them ("Execution supplied N buffers but compiled program expected M")
+_MULT = np.uint32(747796405)
+_INC = np.uint32(2891336453)
+_OUT_MULT = np.uint32(277803737)
 
 
 def _step(state):

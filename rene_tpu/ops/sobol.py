@@ -1,6 +1,6 @@
 """Padded 2D Sobol sampler with hash-based Owen scrambling.
 
-TPU-native replacement for the `Sampler "sobol"` directive the
+A replacement for the `Sampler "sobol"` directive the
 reference parses-and-ignores (rene/src/scene.rs:120-122): per sampling
 decision (a "pair": camera jitter, one bounce's BSDF (u1,u2), one
 bounce's NEE point, ...) every pixel draws the SAME base (0,2)-sequence
@@ -14,9 +14,8 @@ their seed into the hash, giving independent Owen realizations
 (unbiased across chunks, stratified within one).
 
 Everything is XOR / AND / shifts / uint32 multiply-add + the mantissa
-bitcast — each probed on-chip in scripts/tpu_session_r3ac.py — so the
-same code runs under jnp (XLA, interpret tests) and inside Mosaic
-kernels.
+bitcast. The integrators do not call it yet (ROADMAP R2): they sample
+independently and warn on `Sampler "sobol"`.
 """
 from __future__ import annotations
 

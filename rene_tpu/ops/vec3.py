@@ -1,11 +1,9 @@
-"""Component-SoA 3-vectors: the TPU-native vector math core.
+"""Component-SoA 3-vectors: the vector math core.
 
-TPU vector registers are (8 sublanes x 128 lanes) tiles over the minor array
-dimension. An (N, 3) vector array therefore runs every elementwise op at
-3/128 lane utilization — a ~40x tax measured on the wavefront hot loop. V3
-stores the components as three independent (N,) arrays, so every operation
-is a perfectly tiled (N,) VPU op, and XLA fuses the component chains exactly
-like hand-written scalar code.
+V3 stores the x, y, z components of N vectors as three independent (N,)
+arrays instead of one (N, 3) array, so every elementwise op works on
+contiguous ray-major data with no minor dimension of 3, and XLA fuses the
+component chains like hand-written scalar code.
 
 V3 is a pytree (works through jit / while_loop carries) and supports the
 vector algebra the renderer needs. Use `V3.from_array` / `.to_array` at HBM

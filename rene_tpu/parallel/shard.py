@@ -1,14 +1,15 @@
-"""Multi-chip scale-out: data-parallel sampling over a device mesh.
+"""Multi-device scale-out over a 1-D device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2.6); its only parallelism
 axes are pixels (one thread each) and sequential samples. Path tracing has no
-inter-ray communication, so the TPU-native scale-out is data parallelism over
-*samples*: every chip renders the full frame with decorrelated RNG streams and
-the films are mean-reduced with `psum` over ICI. Scene buffers are replicated
-(they are read-only); film reduction is the only collective.
+inter-ray communication, so the scale-out is data parallelism: over
+*samples* (every device renders the full frame with decorrelated RNG streams
+and the films are mean-reduced with `psum`) or over *pixels* (film tiles).
+Scene buffers are replicated (they are read-only); the film reduction is the
+only collective.
 
-`render_sample_sharded` is the multi-chip render step: one call = one sample
-per device (N_devices effective spp), jitted once under `shard_map`.
+`render_sample_sharded` is the multi-device render step: one call = one
+sample per device (N_devices effective spp), jitted once under `shard_map`.
 """
 from __future__ import annotations
 
@@ -25,11 +26,11 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = "spp"):
 
 
 def render_sample_sharded(mesh, config, accel=None, axis: str = "spp"):
-    """Build the jitted multi-chip sample function.
+    """Build the jitted multi-device sample function.
 
     Returns fn(buffers, px, py, seed) -> dict of per-ray outputs where
     `radiance` is the mean over the mesh's devices (each device traces its
-    own decorrelated sample) — psum over ICI, replicated result.
+    own decorrelated sample) — psum across devices, replicated result.
     """
     import jax
     import jax.numpy as jnp
@@ -45,7 +46,7 @@ def render_sample_sharded(mesh, config, accel=None, axis: str = "spp"):
 
     def per_device(buffers, px, py, seed):
         idx = jax.lax.axis_index(axis).astype(jnp.uint32)
-        # decorrelate each chip's sample stream
+        # decorrelate each device's sample stream
         dev_seed = seed ^ (idx * jnp.uint32(0x9E3779B9) + jnp.uint32(1))
         out = render_sample(buffers, config, px, py, dev_seed, accel=accel)
         out["radiance"] = jax.lax.psum(out["radiance"], axis) / ndev
@@ -66,7 +67,7 @@ def render_sample_sharded(mesh, config, accel=None, axis: str = "spp"):
 def render_tiles_sharded(mesh, config, accel=None, axis: str = "spp"):
     """Build the jitted pixel-sharded step (film-tile parallelism).
 
-    The ray batch is split across the mesh's devices — each chip traces
+    The ray batch is split across the mesh's devices — each one traces
     its own pixel shard of the SAME sample — and the sharded films are
     reassembled by the sharding layer. Sample-DP (`render_sample_sharded`)
     scales samples/second; this scales single-sample latency, the better
@@ -96,87 +97,14 @@ def render_tiles_sharded(mesh, config, accel=None, axis: str = "spp"):
     return jax.jit(fn)
 
 
-def make_pallas_multichip(buffers_np, config, mesh, mode: str = "samples",
-                          interpret: bool = False, axis: str = "spp"):
-    """Shard the Pallas megakernel over a device mesh.
-
-    mode="samples": every device runs the full ray-tile grid with a
-    decorrelated seed; the 10 lane outputs are psum'd over ICI (the
-    returned radiance is a SUM over num_samples * ndev samples — the
-    driver divides by effective spp). mode="tiles": the ray-tile grid is
-    split across devices (tile count padded to a mesh multiple) and each
-    device traces its shard of the SAME sample; per-device seeds offset
-    by the local tile count so the per-tile RNG streams reproduce the
-    single-chip assignment exactly (tiles-mode output == single-chip
-    output for the same seed).
-
-    Returns fn(seed, num_samples static) -> same dict as the single-chip
-    runner, or None if the scene is pallas-ineligible.
-    """
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from ..integrators.pallas_path import make_pallas_batch_fn
-
-    ndev = mesh.devices.size
-    run = make_pallas_batch_fn(
-        buffers_np, config, interpret=interpret,
-        pad_tiles_to=(ndev if mode == "tiles" else 1))
-    if run is None:
-        return None
-    px = jnp.asarray(run.px_host)
-    py = jnp.asarray(run.py_host)
-    local_tiles = run.n_tiles // ndev
-
-    @functools.partial(jax.jit, static_argnums=(1,))
-    def fn(seed, num_samples):
-        if mode == "samples":
-            def per_device(s, px_, py_):
-                idx = jax.lax.axis_index(axis).astype(jnp.int32)
-                dev_seed = s + idx * jnp.int32(0x3779B1)
-                outs = run.call_tiles(dev_seed, num_samples, px_, py_)
-                return tuple(jax.lax.psum(o, axis) for o in outs)
-            sharded = shard_map(per_device, mesh=mesh,
-                                in_specs=(P(), P(), P()),
-                                out_specs=tuple([P()] * 10),
-                                check_vma=False)
-        else:
-            def per_device(s, px_, py_):
-                idx = jax.lax.axis_index(axis).astype(jnp.int32)
-                # reproduce the single-chip per-tile stream assignment:
-                # the kernel seeds with seed + pid*65537 and pid is LOCAL
-                # under sharding, so shift by the device's first tile
-                dev_seed = s + idx * jnp.int32(local_tiles * 65537)
-                return run.call_tiles(dev_seed, num_samples, px_, py_)
-            sh = P(axis)
-            sharded = shard_map(per_device, mesh=mesh,
-                                in_specs=(P(), sh, sh),
-                                out_specs=tuple([sh] * 10),
-                                check_vma=False)
-        return run.finish(sharded(jnp.int32(seed), px, py))
-
-    fn.chunk_hint = run.chunk_hint
-    fn.ndev = ndev
-    fn.npix = run.npix
-    fn.spp_mult = getattr(run, "spp_mult", 1)  # sample-in-tile packing
-    return fn
-
-
 def render_multichip(scene, spp: int, seed: int = 0, mesh=None,
-                     tile_rays: int = 1 << 18, mode: str = "samples",
-                     engine: str = "auto"):
-    """Full multi-chip render driver: like rene_tpu.render.render but
-    parallelized over the mesh. mode="samples": each chip traces the
+                     tile_rays: int = 1 << 18, mode: str = "samples"):
+    """Full multi-device render loop: like rene_tpu.render.render but
+    parallelized over the mesh. mode="samples": each device traces the
     whole frame at its own sample (spp throughput scales). mode="tiles":
-    each chip traces a pixel shard of the same sample (per-sample
-    latency scales). engine="auto" uses the sharded Pallas megakernel
-    for eligible scenes on TPU (the fast path — the XLA wavefront under
-    a mesh is a correctness fallback, not a capability)."""
-    import jax
+    each device traces a pixel shard of the same sample (per-sample
+    latency scales; the image equals that of the same call on a
+    one-device mesh)."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -188,30 +116,6 @@ def render_multichip(scene, spp: int, seed: int = 0, mesh=None,
     ndev = mesh.devices.size
 
     buffers_np, config = build_device_scene(scene)
-
-    if engine == "wave":
-        # wavefront engine, sample-DP only (each chip runs its own wave,
-        # films psum'd); tiles mode is a megakernel capability
-        from ..integrators.pallas_wave import make_pallas_wave_fn
-        on_tpu = jax.devices()[0].platform == "tpu"
-        wrun = make_pallas_wave_fn(buffers_np, config, mesh=mesh,
-                                   interpret=not on_tpu, spp_hint=spp)
-        if wrun is None:
-            raise ValueError("scene not eligible for the wave engine")
-        return _render_pallas_multichip(wrun, config, spp, seed,
-                                        "samples")
-
-    if engine in ("auto", "pallas"):
-        on_tpu = jax.devices()[0].platform == "tpu"
-        if on_tpu or engine == "pallas":
-            prun = make_pallas_multichip(buffers_np, config, mesh,
-                                         mode=mode, interpret=not on_tpu)
-            if prun is not None:
-                return _render_pallas_multichip(prun, config, spp, seed,
-                                                mode)
-            if engine == "pallas":
-                raise ValueError("scene not eligible for the pallas "
-                                 "engine")
 
     buffers = to_jax(buffers_np)
     from ..ops.accel import make_accel
@@ -263,58 +167,5 @@ def render_multichip(scene, spp: int, seed: int = 0, mesh=None,
         "albedo": rays_to_image(accum["albedo"] / steps, w, h),
         "total_rays": total_rays,
         "effective_spp": steps * (ndev if mode == "samples" else 1),
-        "config": config,
-    }
-
-
-def _render_pallas_multichip(prun, config, spp: int, seed: int, mode: str):
-    """Driver loop for the mesh-sharded pallas megakernel (mirrors
-    render._render_pallas; chunking bounds per-call device time)."""
-    import numpy as np
-
-    from ..utils.film import rays_to_image
-
-    w = config.film.xresolution
-    h = config.film.yresolution
-    n = w * h
-    accum = {k: np.zeros((n, 3), np.float32)
-             for k in ("radiance", "normal", "albedo")}
-    ndev = getattr(prun, "ndev", None) or prun.effective_multiplier
-    # samples mode: every device call yields chunk*ndev samples; a
-    # packed megakernel (spp_mult > 1) multiplies both modes
-    per_call = (ndev if mode == "samples" else 1) \
-        * getattr(prun, "spp_mult", 1)
-    max_chunk = min(100, getattr(prun, "chunk_hint", 100))
-    host_rng = np.random.default_rng(seed)
-    total_rays = 0.0
-    done = 0
-    target = max(1, (spp + per_call - 1) // per_call)
-    # wave runners accumulate the film on-device across chunks (one
-    # readback per render; see render._render_pallas)
-    dev_accum = getattr(prun, "run_dev", None)
-    acc = None
-    while done < target:
-        chunk = min(max_chunk, target - done)
-        chunk_seed = int(host_rng.integers(0, 2 ** 31, dtype=np.int32))
-        if dev_accum is not None:
-            acc = dev_accum(chunk_seed, chunk, acc)
-        else:
-            out = prun(chunk_seed, chunk)
-            for k in accum:
-                accum[k] += np.asarray(out[k])
-            total_rays += float(out["rays"])
-        done += chunk
-    if acc is not None:
-        out = prun.read_back(acc)
-        for k in accum:
-            accum[k] += out[k]
-        total_rays += out["rays"]
-    eff_spp = target * per_call
-    return {
-        "color": rays_to_image(accum["radiance"] / eff_spp, w, h),
-        "normal": rays_to_image(accum["normal"] / eff_spp, w, h),
-        "albedo": rays_to_image(accum["albedo"] / eff_spp, w, h),
-        "total_rays": total_rays,
-        "effective_spp": eff_spp,
         "config": config,
     }

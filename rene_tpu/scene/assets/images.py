@@ -438,7 +438,13 @@ def load_image(path: str) -> Image:
         return load_pfm(path)
     if lower.endswith(".exr"):
         return load_exr(path)
-    from PIL import Image as PILImage
+    try:
+        from PIL import Image as PILImage
+    except ImportError as e:
+        raise ImportError(
+            f"loading the LDR image {path} needs the 'Pillow' package "
+            "(PIL), which is not installed; PFM and EXR load without "
+            "it") from e
     img = PILImage.open(path).convert("RGBA")
     arr = np.asarray(img, dtype=np.float32) / 255.0
     rgba = np.concatenate(

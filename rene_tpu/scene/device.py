@@ -1,7 +1,7 @@
-"""Device scene: flat SoA buffers ready for the TPU render kernels.
+"""Device scene: flat SoA buffers ready for the render kernels.
 
 This replaces the reference's Vulkan upload + acceleration-structure build
-(/root/reference/rene/src/main.rs:2910-3336). TPU-first design decisions:
+(rene/src/main.rs:2910-3336). Design decisions:
 
 * Triangle geometry is pre-transformed to *world space* at compile time
   (instances replicate their mesh), removing per-ray object-space transforms
@@ -20,6 +20,7 @@ Everything is float32/int32 numpy; `to_jax()` moves the buffers on device.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Dict, Optional
 
@@ -29,10 +30,9 @@ from . import types as T
 from .flatten import FlatScene
 from .intermediate import Film
 
-# infinite-light importance-sampling grid (see build_device_scene):
-# ENV_GW is one VPU register row wide and ENV_GH fits a single row too,
-# so the pallas kernels can binary-search both CDFs with broadcast-row
-# lane gathers (the only per-lane gather Mosaic lowers).
+log = logging.getLogger("rene_tpu.scene")
+
+# infinite-light importance-sampling grid (see build_device_scene)
 ENV_GH, ENV_GW = 64, 128
 
 
@@ -43,7 +43,7 @@ class RenderConfig:
     `mat_types` / `tex_types` / `max_lobes` drive scene-specialized
     compilation: kernels only emit code for the material/BxDF/texture
     variants the scene actually contains (a pure-matte scene compiles a
-    Lambertian-only BSDF), the TPU analogue of shader specialization.
+    Lambertian-only BSDF), the analogue of shader specialization.
     """
     integrator: str
     film: Film
@@ -63,8 +63,8 @@ class RenderConfig:
     # tent (triangle) pixel-filter radius via filter importance
     # sampling; 0.0 = box jitter (the previous behavior)
     filter_radius: float = 0.0
-    # "sobol": padded Owen-scrambled (0,2)-sequence draws in the pallas
-    # engines (ops/sobol.py); "independent": the PRNG everywhere
+    # the scene's Sampler directive; the integrators sample independently
+    # either way (build_device_scene warns on "sobol")
     sampler: str = "independent"
     # importance-sample an imagemap infinite light inside the NEE/MIS
     # mixture (beyond the reference, which only picks the env up
@@ -184,10 +184,10 @@ def build_device_scene(scene: FlatScene):
     buffers["sph_w2o"] = cat(sph_w2o, (3, 4))
     buffers["sph_inst"] = cat(sph_inst, (), np.int32)
 
-    # per-instance blas identity + transforms: lets the pallas packer
-    # share ONE object-space cluster table across ObjectInstance replays
-    # (the reference's BLAS sharing, main.rs:2739-2908) instead of
-    # paying O(instances x mesh) table memory
+    # per-instance blas identity + transforms and the object-space meshes:
+    # what a shared-BLAS (two-level) accelerator needs (the reference's
+    # BLAS sharing, main.rs:2739-2908); the flattened tri_* tables above
+    # are what the integrators trace today
     buffers["inst_blas"] = np.asarray(inst_blas, np.int32)
     buffers["inst_o2w"] = cat(inst_o2w, (3, 4))
     buffers["inst_w2o"] = cat(inst_w2o, (3, 4))
@@ -254,15 +254,7 @@ def build_device_scene(scene: FlatScene):
     if not flat:
         offsets, widths, heights = [0], [1], [1]
         flat = [np.zeros((1, 4), np.float32)]
-    atlas = np.concatenate(flat, axis=0).astype(np.float32)
-    # Quantize texel RGB onto the RGB9E5 grid ONCE for both engines:
-    # the kernel fetches a u32-packed atlas (one gather per bilinear
-    # corner instead of three — see ops/rgb9e5.py) and decodes to
-    # exactly these floats, so pallas/XLA parity stays bit-exact.
-    if atlas.size:
-        from ..ops.rgb9e5 import quantize
-        atlas[:, :3] = quantize(atlas[:, :3])
-    buffers["img_atlas"] = atlas
+    buffers["img_atlas"] = np.concatenate(flat, axis=0).astype(np.float32)
     buffers["img_offset"] = np.asarray(offsets, np.int32)
     buffers["img_width"] = np.asarray(widths, np.int32)
     buffers["img_height"] = np.asarray(heights, np.int32)
@@ -338,6 +330,10 @@ def build_device_scene(scene: FlatScene):
         buffers["background_matrix_inv"] = np.linalg.inv(
             scene.background_matrix.astype(np.float64)).astype(np.float32)
 
+    sampler = getattr(scene, "sampler", "independent")
+    if sampler == "sobol":
+        log.warning('Sampler "sobol" is not implemented by the XLA '
+                    'integrators; sampling independently')
     _mat_lobe_count = {T.MAT_NONE: 0, T.MAT_MATTE: 1, T.MAT_GLASS: 1,
                        T.MAT_SUBSTRATE: 1, T.MAT_METAL: 1, T.MAT_MIRROR: 1,
                        T.MAT_UBER: 5, T.MAT_PLASTIC: 2}
@@ -362,7 +358,7 @@ def build_device_scene(scene: FlatScene):
         filter_radius=(float(scene.pixel_filter[1])
                        if getattr(scene, "pixel_filter",
                                   ("box",))[0] == "triangle" else 0.0),
-        sampler=getattr(scene, "sampler", "independent"),
+        sampler=sampler,
         env_nee=env_nee,
     )
 
@@ -393,9 +389,9 @@ def build_device_scene(scene: FlatScene):
                "inst_kind"):
         pad_nonempty(nm, (), np.int32)
 
-    # transposed component tables for lane-tiled gathers (see ops/vec3.py):
-    # gathering rows of (K, T) along axis 1 yields (K, N) results whose
-    # minor dim is the ray dim — fully utilized VPU lanes.
+    # transposed component tables (see ops/vec3.py): gathering rows of
+    # (K, T) along axis 1 yields (K, N) results whose minor dim is the ray
+    # dim.
     buffers["tri_pT"] = np.ascontiguousarray(
         buffers["tri_p"].reshape(-1, 9).T)
     buffers["tri_nT"] = np.ascontiguousarray(

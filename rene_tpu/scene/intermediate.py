@@ -660,10 +660,10 @@ def scene_to_ir(stmt: SceneStmt, base_dir: str):
         obj = stmt.payload
         ot = obj.object_type
         if ot == "Sampler":
-            # The reference ignores this (scene.rs:120-122). We honor
-            # "sobol" (padded Owen-scrambled (0,2)-sequence in the
-            # pallas engines, ops/sobol.py); other samplers and the
-            # ignored pixelsamples fall back to the independent PRNG.
+            # The reference ignores this (scene.rs:120-122). We record
+            # "sobol" (ops/sobol.py, not yet used by the integrators,
+            # which warn); other samplers and the ignored pixelsamples
+            # mean the independent PRNG.
             if obj.t in ("sobol", "lowdiscrepancy", "02sequence"):
                 return ("sampler", "sobol")
             return ("sampler", "independent")

@@ -2,7 +2,7 @@
 
 A JSON file patches specific flattened TLAS instances without editing the
 scene sources — a diagnostic/compat layer. Motivating case
-(VALIDATION.md, veach forensics): the shipped pbrt ports of the Bitterli
+(the veach forensics): the shipped pbrt ports of the Bitterli
 scenes measurably diverge from the Tungsten originals that produced the
 goldens (different backdrop albedo, different plate response); an
 override file expresses the hypothesized Tungsten-compatible scene so

@@ -3,7 +3,7 @@
 The reference encodes every polymorphic GPU type as a C-style tagged union
 (`Enum*` = u32 tag + fixed UVec4/Vec4 payload). We keep the same
 layout idea — a tag array plus generic `u0`/`u1` int and `v0` float payload
-lanes — because it maps directly onto masked vectorized evaluation on TPU.
+lanes — because it maps directly onto masked vectorized evaluation.
 
 Tag values follow the reference enum declaration order so scene dumps are
 directly comparable (material.rs:54-63, texture.rs:24-30, medium.rs:49-52,

@@ -3,7 +3,7 @@
 The reference keeps its film in VRAM only — a crash loses every sample
 (SURVEY.md §5). Here the host-side film is snapshotted every log batch and
 `--resume` continues from the last snapshot. Snapshots carry a scene/config
-fingerprint so resuming against a different scene, seed, or engine refuses
+fingerprint so resuming against a different scene or seed refuses
 instead of silently blending mismatched sample sums into the film.
 """
 from __future__ import annotations
@@ -18,13 +18,12 @@ import numpy as np
 log = logging.getLogger("rene_tpu.checkpoint")
 
 
-def scene_fingerprint(buffers_np: dict, config, seed, engine: str) -> str:
+def scene_fingerprint(buffers_np: dict, config, seed) -> str:
     """Stable hash of the facts that make two accumulations compatible:
-    the flat scene buffers, the static config, the host seed and the
-    engine (pallas/XLA sample streams differ)."""
+    the flat scene buffers, the static config and the host seed."""
     h = hashlib.sha1()
     h.update(repr(config).encode())
-    h.update(f"seed={int(seed)};engine={engine}".encode())
+    h.update(f"seed={int(seed)}".encode())
     for k in sorted(buffers_np):
         v = np.ascontiguousarray(buffers_np[k])
         h.update(k.encode())
@@ -49,8 +48,8 @@ def load_checkpoint(path: str,
         saved = bytes(z["fingerprint"]).decode() if "fingerprint" in z else ""
         if fingerprint and saved and saved != fingerprint:
             log.warning(
-                "checkpoint %s was written for a different scene/seed/"
-                "engine; ignoring it (delete the file to silence this)",
+                "checkpoint %s was written for a different scene/seed; "
+                "ignoring it (delete the file to silence this)",
                 path)
             return None
         accum = {k: z[k] for k in ("radiance", "normal", "albedo")}

@@ -31,7 +31,7 @@ pi*C per channel — the floor match is exact by construction and the
 measured window radiances are untouched.
 
 This is a Tungsten-compat calibration in the same sense as the veach
-override (VALIDATION.md round-3): derived from the golden, shipped
+override: derived from the golden, shipped
 under docs/overrides/, applied only via --tungsten-compat /
 --scene-overrides.
 
@@ -71,7 +71,7 @@ def main(out_pfm):
     scene = load_scene(SCENE)
     H, W = scene.film.yresolution, scene.film.xresolution
     scene.max_depth_hint = 2
-    aov = render(scene, spp=1, seed=0, engine="xla")
+    aov = render(scene, spp=1, seed=0)
     nrm, alb = np.asarray(aov["normal"], np.float64), aov["albedo"]
 
     bn, _ = build_device_scene(load_scene(SCENE))
@@ -139,7 +139,7 @@ def main(out_pfm):
     filled[~have] = 0.5 * filled[~have] + 0.5 * C
 
     # loose peak cap only: the renderer importance-samples imagemap
-    # infinite lights (env_nee, all engines), so the HDR windows no
+    # infinite lights (env_nee), so the HDR windows no
     # longer firefly and can ship at full strength. (The first cut of
     # this recipe predates env_nee and clamped at 3 + blurred — the
     # 64-spp denoised A/B then: cnn SSIM 0.8552 vs 0.8104 base. With

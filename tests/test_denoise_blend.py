@@ -55,10 +55,10 @@ WorldEnd
     p = "/tmp/test_want_var.pbrt"
     with open(p, "w") as f:
         f.write(scene_txt)
-    out = render(load_scene(p), spp=8, engine="xla", want_var=True)
+    out = render(load_scene(p), spp=8, want_var=True)
     v = out["varmean"]
     assert v.shape == out["color"].shape
     assert np.isfinite(v).all() and (v >= 0).all()
     # more samples -> tighter mean
-    out2 = render(load_scene(p), spp=32, engine="xla", want_var=True)
+    out2 = render(load_scene(p), spp=32, want_var=True)
     assert out2["varmean"].mean() < v.mean()

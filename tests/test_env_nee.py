@@ -9,7 +9,6 @@ continues the path, so pickup stays the ordinary miss term and the
 estimator is plain one-sample MIS — unbiased for ANY grid resolution.
 """
 import numpy as np
-import pytest
 
 from rene_tpu.pbrt import parse_pbrt
 from rene_tpu.scene import create_scene
@@ -35,7 +34,7 @@ WorldEnd
 
 def render_mean(scene, spp, seed=3):
     from rene_tpu.render import render
-    out = render(scene, spp=spp, seed=seed, engine="xla")
+    out = render(scene, spp=spp, seed=seed)
     return out["color"]
 
 
@@ -127,99 +126,3 @@ WorldEnd
         return e / 3
     e_on, e_off = err(True), err(False)
     assert e_on < 0.5 * e_off, (e_on, e_off)
-
-
-# -- pallas kernel parity -----------------------------------------------
-
-def kernel_env_scene(tmp_path, with_emitter):
-    rgb = np.full((16, 32, 3), 0.3)
-    rgb[2:4, 4:7] = [25.0, 12.0, 5.0]
-    save_pfm(str(tmp_path / "env.pfm"), rgb.astype(np.float32))
-    emitter = """
-AttributeBegin
-  AreaLightSource "diffuse" "rgb L" [8 7 6]
-  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
-    "point P" [-0.6 2.2 -0.6  0.6 2.2 -0.6  0.6 2.2 0.6  -0.6 2.2 0.6]
-AttributeEnd
-""" if with_emitter else ""
-    src = f"""
-Integrator "path" "integer maxdepth" [5]
-LookAt 0 1.2 -3.2  0 0.6 0  0 1 0
-Camera "perspective" "float fov" [45]
-Film "image" "integer xresolution" [24] "integer yresolution" [16]
-WorldBegin
-LightSource "infinite" "string mapname" ["env.pfm"]
-{emitter}
-Material "matte" "rgb Kd" [0.6 0.5 0.4]
-Shape "sphere" "float radius" 0.6
-Material "matte" "rgb Kd" [0.5 0.5 0.5]
-Shape "trianglemesh" "point P" [ -6 0 -6  6 0 -6  6 0 6  -6 0 6 ]
-  "integer indices" [ 0 1 2 0 2 3 ]
-WorldEnd
-"""
-    return create_scene(parse_pbrt(src), str(tmp_path))
-
-
-@pytest.mark.parametrize("with_emitter", [False, True])
-def test_kernel_env_nee_matches_xla(tmp_path, with_emitter):
-    """Interpret-mode megakernel with the in-kernel env strategy
-    (broadcast-row binary search + select-chain row pick) must
-    statistically match the XLA integrator running the same
-    estimator."""
-    from rene_tpu.integrators.pallas_path import make_pallas_batch_fn
-    from rene_tpu.render import render
-
-    scene = kernel_env_scene(tmp_path, with_emitter)
-    bn, cfg = build_device_scene(scene)
-    assert cfg.env_nee
-    run = make_pallas_batch_fn(bn, cfg, interpret=True)
-    assert run is not None
-    spp = 16
-    out = run(3, spp)
-    pallas_mean = np.asarray(out["radiance"]).mean(axis=0) / spp
-    xla = render(scene, spp=32, seed=5, engine="xla")
-    xla_mean = xla["color"].mean(axis=(0, 1))
-    np.testing.assert_allclose(pallas_mean, xla_mean, rtol=0.12)
-
-
-def test_wave_env_nee_matches_xla(tmp_path, monkeypatch):
-    """Wave engine on a cluster scene with an imagemap env: the wave
-    bounce shares the kernel env strategy."""
-    from rene_tpu.integrators import pallas_path as pp
-    from rene_tpu.integrators.pallas_wave import make_pallas_wave_fn
-    from rene_tpu.render import render
-
-    monkeypatch.setattr(pp, "CLUSTER", 16)
-    from .test_pallas_cluster import uv_sphere
-    verts, idx = uv_sphere()
-    p = " ".join(f"{x:.5f} {y:.5f} {z:.5f}" for x, y, z in verts)
-    i = " ".join(map(str, idx))
-    rgb = np.full((16, 32, 3), 0.25)
-    rgb[2:4, 4:7] = [20.0, 10.0, 4.0]
-    save_pfm(str(tmp_path / "env.pfm"), rgb.astype(np.float32))
-    src = f"""
-Integrator "path" "integer maxdepth" [5]
-LookAt 0 1.2 -3.2  0 0.6 0  0 1 0
-Camera "perspective" "float fov" [45]
-Film "image" "integer xresolution" [24] "integer yresolution" [16]
-WorldBegin
-LightSource "infinite" "string mapname" ["env.pfm"]
-Material "matte" "rgb Kd" [0.75 0.25 0.2]
-Shape "trianglemesh" "point P" [ {p} ] "integer indices" [ {i} ]
-Material "matte" "rgb Kd" [0.5 0.5 0.5]
-Shape "trianglemesh" "point P" [ -6 0 -6  6 0 -6  6 0 6  -6 0 6 ]
-  "integer indices" [ 0 1 2 0 2 3 ]
-WorldEnd
-"""
-    scene = create_scene(parse_pbrt(src), str(tmp_path))
-    bn, cfg = build_device_scene(scene)
-    assert cfg.env_nee
-    run = make_pallas_wave_fn(bn, cfg, interpret=True,
-                              samples_per_wave=2)
-    assert run is not None
-    spp = run.samples_per_wave
-    out = run(3, spp)
-    wave_mean = np.asarray(out["radiance"]).mean(axis=0) / spp
-    xla = render(scene, spp=16, seed=5, engine="xla")
-    xla_mean = xla["color"].mean(axis=(0, 1))
-    np.testing.assert_allclose(wave_mean, xla_mean, rtol=0.15)

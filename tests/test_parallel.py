@@ -88,112 +88,3 @@ def test_tile_sharded_pads_ragged_batches(eight_devices):
     out = render_multichip(scene, spp=2, seed=3, mesh=mesh, mode="tiles")
     assert out["color"].shape == (21, 31, 3)
     assert np.isfinite(out["color"]).all()
-
-
-MAXD_SRC = SRC.replace('WorldBegin',
-                       'Integrator "path" "integer maxdepth" 4\nWorldBegin')
-
-
-def test_pallas_tiles_sharded_matches_single_chip(eight_devices):
-    """Sharding the pallas ray-tile grid across the mesh reproduces the
-    single-chip kernel EXACTLY: per-device seeds offset by the local tile
-    count so each global tile keeps its RNG stream."""
-    from rene_tpu.integrators.pallas_path import make_pallas_batch_fn
-    from rene_tpu.parallel.shard import make_mesh, make_pallas_multichip
-    from rene_tpu.scene.device import build_device_scene
-
-    scene = create_scene(parse_pbrt(MAXD_SRC), "/tmp")
-    bn, config = build_device_scene(scene)
-    mesh = make_mesh(eight_devices)
-    prun = make_pallas_multichip(bn, config, mesh, mode="tiles",
-                                 interpret=True)
-    assert prun is not None
-    single = make_pallas_batch_fn(bn, config, interpret=True,
-                                  pad_tiles_to=8)
-    a = prun(11, 2)
-    b = single(11, 2)
-    np.testing.assert_array_equal(np.asarray(a["radiance"]),
-                                  np.asarray(b["radiance"]))
-    np.testing.assert_array_equal(np.asarray(a["albedo"]),
-                                  np.asarray(b["albedo"]))
-    assert float(a["rays"]) == float(b["rays"])
-
-
-def test_pallas_samples_sharded_statistical(eight_devices):
-    """Sample-DP over the mesh: 8 decorrelated device samples psum'd;
-    the mean agrees with the XLA integrator."""
-    import jax.numpy as jnp
-
-    from rene_tpu.parallel.shard import make_mesh, make_pallas_multichip
-    from rene_tpu.render import render
-    from rene_tpu.scene.device import build_device_scene
-
-    scene = create_scene(parse_pbrt(MAXD_SRC), "/tmp")
-    bn, config = build_device_scene(scene)
-    mesh = make_mesh(eight_devices)
-    prun = make_pallas_multichip(bn, config, mesh, mode="samples",
-                                 interpret=True)
-    assert prun is not None
-    out = prun(5, 2)  # 2 samples x 8 devices
-    rad = np.asarray(out["radiance"]) / 16.0
-    assert np.isfinite(rad).all()
-    xla = render(scene, spp=16, seed=2, engine="xla")
-    np.testing.assert_allclose(rad.mean(axis=0),
-                               xla["color"].mean(axis=(0, 1)), rtol=0.1)
-    # determinism
-    out2 = prun(5, 2)
-    np.testing.assert_array_equal(np.asarray(out["radiance"]),
-                                  np.asarray(out2["radiance"]))
-
-
-def test_render_multichip_pallas_engine(eight_devices):
-    """render_multichip engine='pallas' drives the sharded megakernel
-    end-to-end (interpret on the CPU mesh)."""
-    from rene_tpu.parallel.shard import make_mesh, render_multichip
-    scene = create_scene(parse_pbrt(MAXD_SRC), "/tmp")
-    mesh = make_mesh(eight_devices)
-    out = render_multichip(scene, spp=8, seed=0, mesh=mesh,
-                           mode="samples", engine="pallas")
-    assert out["effective_spp"] == 8
-    img = out["color"]
-    assert img.shape == (24, 32, 3)
-    np.testing.assert_allclose(img[0, 0], [0.4, 0.45, 0.5], atol=0.02)
-    assert img[12, 16, 0] > img[12, 16, 1]
-
-
-def test_wave_multichip_samples(eight_devices):
-    """Wave engine sample-DP over the mesh: each chip runs an
-    independent wave (decorrelated streams), films psum'd; sums cover
-    num_samples x ndev samples."""
-    import jax.numpy as jnp
-
-    from rene_tpu.integrators.pallas_wave import make_pallas_wave_fn
-    from rene_tpu.parallel.shard import make_mesh
-    from rene_tpu.scene.device import build_device_scene
-
-    scene = create_scene(parse_pbrt(MAXD_SRC), "/tmp")
-    bn, config = build_device_scene(scene)
-    mesh = make_mesh(eight_devices)
-    run = make_pallas_wave_fn(bn, config, interpret=True, mesh=mesh,
-                              samples_per_wave=2)
-    assert run is not None and run.effective_multiplier == 8
-    out = run(5, 2)  # 2 samples x 8 devices
-    rad = out["radiance"] / 16.0
-    assert np.isfinite(rad).all()
-    from rene_tpu.render import render
-    xla = render(scene, spp=16, seed=2, engine="xla")
-    np.testing.assert_allclose(rad.mean(axis=0),
-                               xla["color"].mean(axis=(0, 1)), rtol=0.1)
-
-
-def test_render_multichip_wave_engine(eight_devices):
-    """render_multichip engine='wave' end-to-end on the CPU mesh."""
-    from rene_tpu.parallel.shard import make_mesh, render_multichip
-    scene = create_scene(parse_pbrt(MAXD_SRC), "/tmp")
-    mesh = make_mesh(eight_devices)
-    out = render_multichip(scene, spp=8, seed=0, mesh=mesh,
-                           engine="wave")
-    assert out["effective_spp"] == 8
-    img = out["color"]
-    assert img.shape == (24, 32, 3)
-    np.testing.assert_allclose(img[0, 0], [0.4, 0.45, 0.5], atol=0.03)

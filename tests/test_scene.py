@@ -202,14 +202,12 @@ WorldEnd"""
 
 def test_metal_fresnel_scale_override():
     """overrides.py fresnel_scale: scales the conductor response with an
-    unchanged Fresnel curve, in both engines (the veach-forensics knob)."""
+    unchanged Fresnel curve (the veach-forensics knob)."""
     import numpy as np
 
-    from rene_tpu.integrators.pallas_path import make_pallas_batch_fn
     from rene_tpu.pbrt import parse_pbrt
     from rene_tpu.render import render
     from rene_tpu.scene import create_scene
-    from rene_tpu.scene.device import build_device_scene
     from rene_tpu.scene.overrides import apply_overrides
 
     src = """
@@ -234,20 +232,15 @@ WorldEnd"""
                     "eta": [0.2, 0.92, 1.1], "k": [3.9, 2.45, 2.1],
                     "uroughness": 0.2, "vroughness": 0.2,
                     "fresnel_scale": [scale] * 3}}]})
-        bn, cfg = build_device_scene(scene)
-        run = make_pallas_batch_fn(bn, cfg, interpret=True)
-        out = run(7, 16)
-        pal = np.asarray(out["radiance"]).mean() / 16
-        xla = render(scene, spp=16, seed=7, engine="xla")["color"].mean()
-        return pal, xla
+        return render(scene, spp=16, seed=7)["color"].mean()
 
-    p1, x1 = mean_radiance(None)
-    p5, x5 = mean_radiance(0.5)
-    # both engines agree, and the metal response scales (plate pixels
-    # dominate the film; background is unchanged)
-    np.testing.assert_allclose(p1, x1, rtol=0.1)
-    np.testing.assert_allclose(p5, x5, rtol=0.1)
-    assert p5 < p1 * 0.95
+    x1 = mean_radiance(None)
+    x5 = mean_radiance(0.5)
+    # the metal response scales (plate pixels dominate the film; the
+    # background is unchanged), and the unscaled override is a no-op
+    assert x5 < x1 * 0.95
+    x0 = mean_radiance(1.0)
+    np.testing.assert_allclose(x0, x1, rtol=1e-6)
 
 
 def test_tungsten_compat_discovery(tmp_path, monkeypatch):

@@ -90,8 +90,69 @@ def test_cli_parser():
     from rene_tpu.cli import build_parser
     p = build_parser()
     args = p.parse_args(["scene.pbrt", "--spp", "16", "--denoiser",
-                         "atrous", "--engine", "xla",
-                         "--color-space", "srgb-lights"])
-    assert args.spp == 16 and args.engine == "xla"
+                         "atrous", "--color-space", "srgb-lights"])
+    assert args.spp == 16 and not hasattr(args, "engine")
     assert args.color_space == "srgb-lights"
     assert args.denoiser == "atrous"
+
+
+def _decode_png(data):
+    """Minimal PNG reader (8-bit RGB, filter 0 rows) built on zlib."""
+    import struct
+    import zlib
+
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, []
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF
+        chunks.append((tag, body))
+        pos += 12 + n
+    assert [t for t, _ in chunks] == [b"IHDR", b"IDAT", b"IEND"]
+    w, h, depth, ctype, comp, filt, lace = struct.unpack(">IIBBBBB",
+                                                         chunks[0][1])
+    assert (depth, ctype, comp, filt, lace) == (8, 2, 0, 0, 0)
+    raw = np.frombuffer(zlib.decompress(chunks[1][1]), np.uint8)
+    rows = raw.reshape(h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 5), (33, 64)])
+def test_png_writer_roundtrip(tmp_path, shape):
+    from rene_tpu.utils.film import encode_png
+    rng = np.random.default_rng(shape[0])
+    img = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+    np.testing.assert_array_equal(_decode_png(encode_png(img)), img)
+    out = save_png(str(tmp_path / "a.png"), img)
+    with open(out, "rb") as f:
+        np.testing.assert_array_equal(_decode_png(f.read()), img)
+
+
+def test_png_writer_rejects_non_rgb():
+    from rene_tpu.utils.film import encode_png
+    with pytest.raises(ValueError):
+        encode_png(np.zeros((4, 4), np.uint8))
+
+
+def test_cli_has_no_engine_flag():
+    from rene_tpu.cli import build_parser
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["scene.pbrt", "--engine", "pallas"])
+
+
+def test_sobol_sampler_warns_once(caplog):
+    from rene_tpu.pbrt import parse_pbrt
+    from rene_tpu.scene import build_device_scene, create_scene
+    scene = create_scene(parse_pbrt("""
+Sampler "sobol" "integer pixelsamples" [ 16 ]
+Film "image" "integer xresolution" [ 4 ] "integer yresolution" [ 4 ]
+WorldBegin
+LightSource "infinite" "rgb L" [ 1 1 1 ]
+WorldEnd"""), ".")
+    with caplog.at_level("WARNING", logger="rene_tpu.scene"):
+        _, config = build_device_scene(scene)
+    assert config.sampler == "sobol"
+    assert sum("sobol" in r.getMessage() for r in caplog.records) == 1
